@@ -1,13 +1,14 @@
 """Micro-benchmark for the native JPEG entropy decoder (host-only).
 
 The decode-fed production path's host budget is dominated by
-``vbs_mjpeg_batch_y_coeffs_delta`` (native/jpeg_coeffs.cpp) — on a 1-core
-driver host the entropy decode IS the ingest wall, so its per-frame cost
+``vbs_mjpeg_batch_y_coeffs_delta`` (native/jpeg_coeffs.cpp) — on a host
+with few cores the entropy decode IS the ingest wall, so its per-frame cost
 bounds sustained_fps_decode_fed. Run this before/after decoder changes:
 
     JAX_PLATFORMS=cpu python benchmarks/bench_entropy.py [n_frames] [threads]
 
-No TPU required (frames render on CPU; nothing touches the device path).
+No accelerator needed: frames render on the CPU and nothing touches the
+device path.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Implements the *documented behavior* of the reference detector (SURVEY.md §2,
 C4/C5: uint8 DoG band-pass -> inRange -> FFT NCC vs Gaussian template ->
 local-maxima labeling -> mask center-of-mass) directly on top of
-OpenCV/SciPy, so the TPU implementation can be compared against the same
+OpenCV/SciPy, so the JAX implementation can be compared against the same
 numeric pipeline the reference runs. Test fixture only — not part of the
 framework.
 """

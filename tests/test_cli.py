@@ -284,9 +284,9 @@ def test_cli_run_live_with_publisher(capsys):
     assert "tilt_deg" in st and st["frames_seen"] >= 2
 
 
-def test_cli_run_live_tpu_decode(capsys):
-    """run-live --tpu-decode: the live stream's JPEGs feed the pipeline
-    through the delta-scatter transport (host entropy decode only) —
+def test_cli_run_live_device_decode(capsys):
+    """run-live --device-decode: the live stream's JPEGs feed the pipeline
+    through the sparse coefficient transport (host entropy decode only) —
     tracked output must appear exactly as with host decode."""
     import dataclasses
 
@@ -310,7 +310,7 @@ def test_cli_run_live_tpu_decode(capsys):
     server.start()
     try:
         main(["run-live", f"http://127.0.0.1:{server.port}/stream",
-              "--batch", "2", "--max-frames", "4", "--tpu-decode"])
+              "--batch", "2", "--max-frames", "4", "--device-decode"])
     finally:
         server.stop()
     out = capsys.readouterr().out
@@ -381,8 +381,8 @@ def test_cli_tilt_video_vs_analyze_txt_pinned(tmp_path, capsys):
     assert abs(a_video - a_txt) < 1e-3, (a_video, a_txt)
 
 
-def test_cli_track_tpu_decode_matches_host(video_npy, tmp_path):
-    """track --tpu-decode on an MJPG AVI: the split-transport on-device
+def test_cli_track_device_decode_matches_host(video_npy, tmp_path):
+    """track --device-decode on an MJPG AVI: the split-transport on-device
     decode path through the overlapped feed must track the same markers as
     the host-decode path (IDCT-rounding-level pixel differences only), and
     gracefully fall back for non-AVI inputs."""
@@ -401,11 +401,11 @@ def test_cli_track_tpu_decode_matches_host(video_npy, tmp_path):
     vw.close()
 
     host_dir = str(tmp_path / "host")
-    tpu_dir = str(tmp_path / "tpu")
+    dev_dir = str(tmp_path / "dev")
     main(["track", avi, "--output-dir", host_dir])
-    main(["track", avi, "--output-dir", tpu_dir, "--tpu-decode"])
+    main(["track", avi, "--output-dir", dev_dir, "--device-decode"])
     h = open(os.path.join(host_dir, "markers.csv")).read().splitlines()
-    t = open(os.path.join(tpu_dir, "markers.csv")).read().splitlines()
+    t = open(os.path.join(dev_dir, "markers.csv")).read().splitlines()
     assert h[0] == t[0] and len(h) == len(t)
     for lh, lt in zip(h[1:], t[1:]):
         fh = np.array(lh.split(",")[2:], float)
@@ -420,7 +420,7 @@ def test_cli_track_tpu_decode_matches_host(video_npy, tmp_path):
         np.testing.assert_allclose(ft[6:8], fh[6:8], atol=0.6)
         assert abs((ft[8] - fh[8] + 90.0) % 180.0 - 90.0) < 6.0
 
-    # Non-AVI input: --tpu-decode must fall back to host decode, not die.
+    # Non-AVI input: --device-decode must fall back to host decode, not die.
     fb_dir = str(tmp_path / "fb")
-    main(["track", video_npy, "--output-dir", fb_dir, "--tpu-decode"])
+    main(["track", video_npy, "--output-dir", fb_dir, "--device-decode"])
     assert os.path.exists(os.path.join(fb_dir, "markers.csv"))

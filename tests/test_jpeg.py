@@ -1,4 +1,4 @@
-"""TPU JPEG decode path: native entropy decoder + MXU IDCT vs libjpeg."""
+"""Device JPEG decode path: native entropy decoder + device IDCT vs libjpeg."""
 import numpy as np
 import pytest
 
@@ -73,14 +73,14 @@ def test_restart_markers(method):
     assert np.abs(out - ref).max() <= 2.0
 
 
-def test_tpu_avi_source_matches_host_source(tmp_path):
-    """MjpegAviTpuSource frames == MjpegAviSource frames within IDCT
+def test_device_avi_source_matches_host_source(tmp_path):
+    """MjpegAviDeviceSource frames == MjpegAviSource frames within IDCT
     rounding, and the detector sees identical markers through both."""
     _lib_or_skip()
     from vision_basedsensor_tpu.config import DetectConfig
     from vision_basedsensor_tpu.detect import detect_markers
     from vision_basedsensor_tpu.io.video import (
-        MjpegAviSource, MjpegAviTpuSource, VideoWriter)
+        MjpegAviSource, MjpegAviDeviceSource, VideoWriter)
     from vision_basedsensor_tpu.synth import default_scene, render_frames
 
     scene = default_scene(height=240, width=320)
@@ -94,13 +94,13 @@ def test_tpu_avi_source_matches_host_source(tmp_path):
     vw.close()
 
     host = np.concatenate(list(MjpegAviSource(path, gray=True).batches(2)))
-    tpu = np.concatenate([np.asarray(b)
-                          for b in MjpegAviTpuSource(path).batches(2)])
-    assert tpu.shape == host.shape == (4, 240, 320)
-    assert np.abs(tpu - host.astype(np.float32)).max() <= 2.0
+    dev = np.concatenate([np.asarray(b)
+                          for b in MjpegAviDeviceSource(path).batches(2)])
+    assert dev.shape == host.shape == (4, 240, 320)
+    assert np.abs(dev - host.astype(np.float32)).max() <= 2.0
 
     det_h = detect_markers(jnp.asarray(host.astype(np.float32)), DetectConfig())
-    det_t = detect_markers(jnp.asarray(tpu), DetectConfig())
+    det_t = detect_markers(jnp.asarray(dev), DetectConfig())
     vh, vt = np.asarray(det_h.valid), np.asarray(det_t.valid)
     assert (vh.sum(1) == vt.sum(1)).all()
     for t in range(4):
@@ -552,8 +552,8 @@ def test_split_vlc_ext_values_exact():
 def test_split_all_uniform_batch():
     """A batch with NO AC entries and NO spills at all: every spill stream
     is pure (gap=0, delta=0) tail padding, whose cumsum lands at -1 —
-    the zero-adds must be no-ops (they wrap to the last element on TPU
-    semantics) and the frames must still match dense. Regression for the
+    the zero-adds must be no-ops (a negative index wraps to the last
+    element) and the frames must still match dense. Regression for the
     round-4 padding scheme whose 65535-gap pads overflowed the int32
     position guard on spill-heavy real streams."""
     _lib_or_skip()

@@ -77,3 +77,21 @@ def test_config_partial_nested_override_keeps_profile_defaults():
     # Untouched siblings keep their defaults too.
     assert r.detect.low_res.blur_small_ksize == 21
     assert r.reconstruct.max_axis_ratio == 1.6
+
+
+def test_config_json_with_removed_detect_keys_still_loads():
+    """Configs saved before the detect-backend options were removed carry
+    ``backend`` and ``moment_mxu_basis``; they load, the keys are dropped
+    and every other field is kept."""
+    import json
+
+    from vision_basedsensor_tpu.config import (DetectConfig, PipelineConfig,
+                                               from_json, to_json)
+    data = json.loads(to_json(PipelineConfig()))
+    data["detect"].update(backend="pallas", moment_mxu_basis=True,
+                          ncc_threshold=0.2)
+    cfg = from_json(json.dumps(data))
+    assert cfg.detect.ncc_threshold == 0.2
+    assert not hasattr(cfg.detect, "backend")
+    assert not hasattr(cfg.detect, "moment_mxu_basis")
+    assert cfg.detect.low_res == DetectConfig().low_res

@@ -1,6 +1,6 @@
-"""vision_basedsensor_tpu — TPU-native vision-based tactile sensor framework.
+"""vision_basedsensor_tpu — vision-based tactile sensor framework in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 UPM-ROB-Lab/Vision-basedSensor (embedded vision-based tactile sensor for
 bonnet polishing): batched marker detection, identity tracking, monocular 3D
 displacement-field reconstruction, contact-force distribution and

@@ -1,7 +1,7 @@
 """Extrinsic calibration: batched-hypothesis RANSAC PnP (reference C11).
 
 Replaces ``cv2.solvePnPRansac(SOLVEPNP_ITERATIVE, conf=0.99, err=8px,
-iters=1000)`` (``extrinsic_calibration.py:97-106``) with a TPU-native
+iters=1000)`` (``extrinsic_calibration.py:97-106``) with a fixed-shape
 formulation: all RANSAC hypotheses are one batch axis — minimal 6-point DLT
 solves as a vmapped SVD, inlier counting as one matrix op, then fixed-
 iteration Gauss-Newton refinement on the best hypothesis's inliers (the
@@ -30,7 +30,7 @@ class PnPResult(NamedTuple):
     # Post-hoc RANSAC confidence 1 - (1 - w^6)^n_hyp from the final inlier
     # ratio w: the probability the fixed hypothesis batch contained at least
     # one all-inlier sample. cv2 uses cfg.ransac_confidence to adapt its
-    # iteration count at runtime; the TPU formulation runs a fixed batch, so
+    # iteration count at runtime; the batched formulation runs a fixed batch, so
     # the knob is honored by *verifying* the achieved confidence instead
     # (solve_pnp_ransac warns when it falls short).
     achieved_confidence: jnp.ndarray

@@ -104,26 +104,12 @@ class DetectConfig:
     occlusion_min_ratio: float = 1.45   # censored-disk s ~ -0.42
     occlusion_max_ratio: float = 6.0    # past ~s=0.8 too little remains
     occlusion_min_skew: float = 0.08    # uncensored blobs sit near 0
-    # Window-sum backend: "pallas" (fused kernel with per-window HBM->VMEM
-    # DMA, ops/pallas/moments.py — 3.4x faster detect on TPU, measured
-    # 593 -> 176 us/frame), "xla" (gather + reduce), or "auto" (pallas on
-    # TPU, xla elsewhere).
-    backend: str = "auto"
     # Run the DoG/NCC filter matmuls with bf16 operands (f32 accumulation).
     # 8-bit pixel values are exact in bf16; band-matrix weights lose ~0.4%,
     # shifting filtered values by ~0.2 gray levels — borderline threshold
-    # pixels can flip, moving centroids by ~0.01 px. Off by default for
-    # bit-level parity with the f32 path.
+    # pixels can flip, moving centroids by ~0.01 px. Off by default: the
+    # f32 path runs its matmuls at Precision.HIGHEST.
     fast_filters: bool = False
-    # Compute the paired-window moment sums via the MXU raw-moment basis
-    # (two fixed-basis matmuls per integrand channel + per-window binomial
-    # shift, ops/moments.py:moments_from_patches_paired_mxu) instead of the
-    # fused VPU reductions. Measured e2e at B=1024 on the v5e: full detect
-    # 91.6 -> 83.8 us/frame (benchmarks/README.md round 5) — the moment
-    # reductions were vector-issue-bound and the MXU runs them beside the
-    # VPU pipeline. False restores the fused-reduction backend (bit-level
-    # parity is pinned between the two either way).
-    moment_mxu_basis: bool = True
 
 
 @dataclass(frozen=True)
@@ -197,7 +183,7 @@ class CalibrateConfig:
     ransac_iterations: int = 1000            # extrinsic_calibration.py:105
     ransac_reproj_threshold_px: float = 8.0  # :104
     # Requested probability of at least one all-inlier RANSAC sample (:103).
-    # The TPU solver runs a fixed hypothesis batch (no adaptive early exit),
+    # The batched solver runs a fixed hypothesis batch (no adaptive early exit),
     # so this is enforced post-hoc: solve_pnp_ransac reports the achieved
     # confidence and warns when it falls below this value.
     ransac_confidence: float = 0.99

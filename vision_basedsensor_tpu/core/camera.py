@@ -90,7 +90,8 @@ def project_points(cam: CameraModel, p_world: jnp.ndarray) -> jnp.ndarray:
 
     Equivalent to ``cv2.projectPoints`` with this camera's R/T/K/dist.
     """
-    p_cam = p_world @ cam.R_wc.T + cam.T_wc
+    p_cam = jnp.matmul(p_world, cam.R_wc.T,
+                       precision=jax.lax.Precision.HIGHEST) + cam.T_wc
     xy = p_cam[..., :2] / p_cam[..., 2:3]
     return normalized_to_pixel(cam, distort_normalized(cam, xy))
 
@@ -149,4 +150,5 @@ def backproject_depth_from_diameter(
     d_eff = (marker_diameter_mm / f_avg) * jnp.sqrt(R * R + f_avg * f_avg)
     h = f_avg * d_eff / jnp.maximum(diameter_px, 1e-6)
     p_cam = jnp.stack([h * du / cam.fx, h * dv / cam.fy, h], axis=-1)
-    return (p_cam - cam.T_wc) @ cam.R_wc
+    return jnp.matmul(p_cam - cam.T_wc, cam.R_wc,
+                      precision=jax.lax.Precision.HIGHEST)

@@ -3,12 +3,13 @@
 Replaces the reference's ``np.linalg.lstsq`` plane fit
 (``ForceDistribution.py:138-162``) and contour-based ``cv2.fitEllipse``
 (``marker_detection.py:208``) with fixed-shape, mask-aware formulations that
-jit/vmap cleanly on TPU.
+jit/vmap cleanly.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 
@@ -28,8 +29,11 @@ def masked_lstsq(A: jnp.ndarray, b: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarr
     """
     m = mask.astype(A.dtype)[..., None]
     Am = A * m
-    AtA = jnp.einsum("...np,...nq->...pq", Am, A)
-    Atb = jnp.einsum("...np,...n->...p", Am, b)
+    # Normal equations square the condition number; TF32 products would
+    # move the fitted plane (and the tilt read from it) visibly.
+    hp = jax.lax.Precision.HIGHEST
+    AtA = jnp.einsum("...np,...nq->...pq", Am, A, precision=hp)
+    Atb = jnp.einsum("...np,...n->...p", Am, b, precision=hp)
     eye = jnp.eye(A.shape[-1], dtype=A.dtype)
     # [..., None]/[..., 0]: batched matrix-vector solve (jnp.linalg.solve
     # treats a (..., N) rhs as a stack of matrices since JAX 0.5).
@@ -85,7 +89,8 @@ def fit_plane_robust(xyz: jnp.ndarray, mask: jnp.ndarray | None = None,
     w = mask.astype(z.dtype)
     coeff = masked_lstsq(A, z, w)
     for _ in range(iters):
-        r = jnp.einsum("...np,...p->...n", A, coeff) - z
+        r = jnp.einsum("...np,...p->...n", A, coeff,
+                       precision=jax.lax.Precision.HIGHEST) - z
         absr = jnp.where(mask, jnp.abs(r), jnp.nan)
         med = jnp.nanmedian(absr, axis=-1, keepdims=True)
         # An all-False mask (fully occluded frame, empty common-id set)
@@ -113,7 +118,7 @@ class EllipseMoments(NamedTuple):
 def ellipse_from_moments(weights: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray) -> EllipseMoments:
     """Fit an ellipse to a weighted pixel region via central moments.
 
-    TPU-native replacement for ``cv2.findContours`` + ``cv2.fitEllipse``
+    Fixed-shape replacement for ``cv2.findContours`` + ``cv2.fitEllipse``
     (``marker_detection.py:196-217``): for a filled ellipse of semi-axes
     (p, q) the covariance eigenvalues are p^2/4 and q^2/4, so the full axes
     are ``4 sqrt(eig)``. Works on any broadcastable ``(..., N)`` weights with

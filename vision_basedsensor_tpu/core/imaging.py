@@ -1,19 +1,16 @@
 """Imaging primitives: grayscale, separable Gaussian/box filters, morphology.
 
-TPU-native replacements for the reference's OpenCV/SciPy image ops
+Fixed-shape replacements for the reference's OpenCV/SciPy image ops
 (``cv2.cvtColor``/``cv2.GaussianBlur`` at ``marker_detection.py:114-124``,
 ``scipy.ndimage`` max/min filters at ``:171-173``, ``cv2.morphologyEx`` at
 ``:194-195``). Everything is batched over a leading frame axis and uses only
 fixed-shape ops.
 
-TPU performance note: single-channel stencil convolutions lower terribly on
-the MXU (measured ~27 GB/s effective), so separable filters are evaluated as
-dense banded matmuls with border handling folded into the band matrix —
-~20x more FLOPs than the taps but ~30x faster wall clock on the MXU. (A
-tiled variant with 4x fewer FLOPs was tried and measured *slower* end to end
-— 3977 vs 5439 fps — the overlapping tile copies and smaller matmuls lose
-more than the FLOP savings; see git history.) Morphology lowers to
-``lax.reduce_window``.
+Separable filters are evaluated as dense banded matmuls with border
+handling folded into the band matrix: ~20x more FLOPs than the taps, in
+exchange for one large matrix product per axis. Whether that or a direct
+separable convolution is faster on a GPU, per frame size, is an open
+measurement. Morphology lowers to ``lax.reduce_window``.
 
 Convention: images are ``(..., H, W)`` float32 (values 0..255 for 8-bit
 sources).
@@ -41,7 +38,10 @@ def to_grayscale(frames: jnp.ndarray, channel_order: str = "bgr",
     if frames.ndim >= 1 and frames.shape[-1] == 3:
         w = _BGR_WEIGHTS if channel_order == "bgr" else _BGR_WEIGHTS[::-1]
         w = jnp.asarray(w, jnp.float32)
-        gray = jnp.tensordot(frames.astype(jnp.float32), w, axes=[[-1], [0]])
+        # HIGHEST: the weighted sum is rounded to integer gray levels next,
+        # and a TF32 product would move values across the rounding point.
+        gray = jnp.tensordot(frames.astype(jnp.float32), w, axes=[[-1], [0]],
+                             precision=jax.lax.Precision.HIGHEST)
     else:
         gray = frames.astype(jnp.float32)
     if quantize:
@@ -77,11 +77,6 @@ def _band_matrix(taps: tuple, n: int, mode: str) -> np.ndarray:
     Border handling is folded into the matrix: 'reflect101' adds the
     reflected tap weights onto interior columns (exactly OpenCV's
     BORDER_REFLECT_101), 'zero' clips (fftconvolve 'same').
-
-    Rationale (TPU): single-channel stencil convolutions lower terribly on
-    the MXU (measured ~27 GB/s effective); as a dense (n, n) matmul the same
-    op runs at full MXU throughput — ~20x more FLOPs, ~30x faster wall clock,
-    and bit-comparable in f32.
     """
     k = len(taps)
     lo = (k - 1) // 2  # taps cover offsets [-lo, k-1-lo]
@@ -103,24 +98,29 @@ def _band_matrix(taps: tuple, n: int, mode: str) -> np.ndarray:
 
 def _sep_filter(x: jnp.ndarray, taps_h, taps_w, mode: str,
                 compute_dtype=None) -> jnp.ndarray:
-    """Separable filter along (H, W) as two MXU matmuls.
+    """Separable filter along (H, W) as two banded matmuls.
 
     ``compute_dtype=jnp.bfloat16`` runs the matmuls with bf16 operands and
-    f32 accumulation (~2x MXU throughput). 8-bit image values are exact in
+    f32 accumulation. 8-bit image values are exact in
     bf16; only the band-matrix weights lose ~0.4% relative precision, so
     filtered values land within ~0.2 gray levels of the f32 path.
     """
     h, w = x.shape[-2:]
     acc = x.dtype if jnp.issubdtype(x.dtype, jnp.floating) else jnp.float32
     dt = acc if compute_dtype is None else compute_dtype
+    # The filtered fields are rounded, wrapped modulo 256 and thresholded
+    # (ops/dog.py, ops/ncc.py), so the f32 path pins full f32 products: a
+    # TF32 matmul keeps ~3 decimal digits and flips threshold pixels. The
+    # bf16 path (``compute_dtype``, DetectConfig.fast_filters) opts out.
+    prec = jax.lax.Precision.HIGHEST if compute_dtype is None else None
     y = x.astype(dt)
     if taps_h is not None:
         Th = jnp.asarray(_band_matrix(tuple(float(t) for t in taps_h), h, mode), dt)
-        y = jnp.einsum("ik,...kw->...iw", Th, y,
+        y = jnp.einsum("ik,...kw->...iw", Th, y, precision=prec,
                        preferred_element_type=acc).astype(dt)
     if taps_w is not None:
         Tw = jnp.asarray(_band_matrix(tuple(float(t) for t in taps_w), w, mode), dt)
-        y = jnp.einsum("...hk,jk->...hj", y, Tw,
+        y = jnp.einsum("...hk,jk->...hj", y, Tw, precision=prec,
                        preferred_element_type=acc)
     return y.astype(acc)
 
@@ -157,9 +157,6 @@ def _reduce_window_2d(x: jnp.ndarray, ksize: int, init, op) -> jnp.ndarray:
     # Window offsets [-k//2, k//2-1] for even k, matching scipy.ndimage's
     # footprint placement (the reference uses even neighborhoods 8/14 at
     # marker_detection.py:170).
-    # NOTE (measured): a log2(k) shift-combine cascade looks cheaper on paper
-    # but regressed end-to-end throughput 6194 -> 3640 fps (the pad/slice
-    # chain defeats XLA fusion); reduce_window stays. See git history.
     pad = [(0, 0)] * (x.ndim - 2) + [(ksize // 2, (ksize - 1) // 2)] * 2
     return jax.lax.reduce_window(x, init, op, dims, (1,) * x.ndim, pad)
 

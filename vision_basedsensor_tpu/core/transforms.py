@@ -7,6 +7,7 @@ batched, differentiable primitives.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -88,10 +89,12 @@ def inverse_rodrigues(R: jnp.ndarray) -> jnp.ndarray:
 
 def world_to_cam(p_world: jnp.ndarray, R_wc: jnp.ndarray, T_wc: jnp.ndarray) -> jnp.ndarray:
     """``P_cam = R @ P_world + T`` for points ``(..., 3)``."""
-    return p_world @ R_wc.T + jnp.reshape(T_wc, (3,))
+    return jnp.matmul(p_world, R_wc.T, precision=jax.lax.Precision.HIGHEST) \
+        + jnp.reshape(T_wc, (3,))
 
 
 def cam_to_world(p_cam: jnp.ndarray, R_wc: jnp.ndarray, T_wc: jnp.ndarray) -> jnp.ndarray:
     """``P_world = R^T (P_cam - T)`` — the inverse map used at
     ``3d_reconstruction.py:228``."""
-    return (p_cam - jnp.reshape(T_wc, (3,))) @ R_wc
+    return jnp.matmul(p_cam - jnp.reshape(T_wc, (3,)), R_wc,
+                      precision=jax.lax.Precision.HIGHEST)

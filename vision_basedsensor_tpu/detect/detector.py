@@ -1,6 +1,6 @@
 """2D marker detection: batched frames -> fixed-size candidate sets.
 
-TPU-first redesign of the reference's per-frame detector
+Fixed-shape redesign of the reference's per-frame detector
 (``MarkerTracker._find_markers`` + ``_marker_center``,
 ``marker_detection.py:111-249``):
 
@@ -31,11 +31,10 @@ from vision_basedsensor_tpu.ops.dog import dog_area_mask
 from vision_basedsensor_tpu.ops.moments import (
     cut_geometry,
     finalize,
-    moments_from_patches,
     window_sums_xla,
 )
 from vision_basedsensor_tpu.ops.ncc import normxcorr_gaussian
-from vision_basedsensor_tpu.ops.peaks import find_peaks, select_peaks_from_cells
+from vision_basedsensor_tpu.ops.peaks import find_peaks
 
 
 class Detections(NamedTuple):
@@ -47,25 +46,6 @@ class Detections(NamedTuple):
     valid: jnp.ndarray   # (..., K) bool
     occluded: jnp.ndarray = None  # (..., K) bool: center/axes recovered by
     #                               occlusion completion (lower confidence)
-
-
-def _resolve_backend(cfg: DetectConfig, gray: jnp.ndarray,
-                     profile: DetectProfile) -> str:
-    """Static backend choice. Mosaic requires aligned DMA offsets: the
-    window-sums kernels' column windows need W % 128 == 0 (and >= 256 for
-    the window size), their row DMA needs H % 8 == 0 (the clipped start for
-    bottom-edge peaks must stay 8-aligned; ADVICE round 2) and
-    H >= patch_size + 8 or the copy would read past the image. Fall back to
-    the XLA path otherwise (static shapes -> resolved at trace time)."""
-    backend = cfg.backend
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas" and (gray.shape[-1] % 128 != 0
-                                or gray.shape[-1] < 256
-                                or gray.shape[-2] % 8 != 0
-                                or gray.shape[-2] < profile.patch_size + 8):
-        backend = "xla"
-    return backend
 
 
 def _finalize_candidates(sums: jnp.ndarray, peaks, cfg: DetectConfig,
@@ -160,83 +140,16 @@ def detect_markers_and_scale(frames: jnp.ndarray, cfg: DetectConfig,
                              profile.template_sigma, binary_input=True,
                              compute_dtype=fdt)
 
-    backend = _resolve_backend(cfg, gray, profile)
-    h, w = gray.shape[-2:]
-    # Whole-frame fused kernel up to 960x1280; larger frames (1080p+) use
-    # its row-tiled variant, which needs every window to fit the 8-row halo
-    # (true for both built-in profiles; a custom profile with wider windows
-    # falls back to the XLA field path below).
-    from vision_basedsensor_tpu.ops.pallas.fields import HALO
-    fits_fused = (h * w <= 960 * 1280
-                  or (profile.band_window // 2 <= HALO
-                      and profile.peak_window // 2 <= HALO
-                      and 2 * (cfg.open_ksize // 2) <= HALO))
-    if backend == "pallas" and fits_fused:
-        # One fused pass over the frame produces the packed per-pixel field
-        # (gray + band + opened area) and the per-cell peak reductions (five
-        # XLA reduce_window round-trips + the peak-tile relayout otherwise);
-        # the per-peak stage then needs a single window DMA per candidate.
-        from vision_basedsensor_tpu.ops.pallas.fields import fused_fields
-        from vision_basedsensor_tpu.ops.pallas.moments import gather_windows
-        packed, cval, cidx = fused_fields(
-            ncc, area.astype(jnp.float32), gray, cfg.ncc_threshold,
-            cfg.open_ksize, profile)
-        peaks = select_peaks_from_cells(cval, cidx, w, cfg.max_candidates,
-                                        float(profile.peak_window))
-        geom = jax.vmap(cut_geometry)(peaks)
-        # Gather-only kernel + fused batched XLA reductions: the per-peak
-        # in-kernel accumulate loop (window_sums_packed / window_sums_pallas,
-        # kept for unaligned-height frames below) is vector-issue-bound at
-        # ~68 us/frame; this pair measured ~39 us/frame (e2e 136 -> 107 us,
-        # B=256, single chip), and lane-rolling the gathered windows from
-        # 256 to 128 columns (the cutoff disk spans <= patch+1 columns)
-        # halves the patch-tensor HBM traffic (~107 -> ~103 us). A fully
-        # fused gather+reduce kernel (gather_moments, kept for reference)
-        # measured 5,934 vs 9,668 fps e2e: even ~15 serial vector ops per
-        # peak (the lo/hi-dependent soft weights) put the loop back in the
-        # vector-issue-bound regime, and Mosaic's sequential grouped
-        # reductions cost more than the patch tensor's HBM round-trip.
-        # Paired windows (two peaks per 128-lane row) halve both the patch
-        # tensor and the reductions' element count — the reductions are
-        # vector-issue-bound, so lane-padding single windows to 128 wastes
-        # half the vector throughput. Measured e2e at B=1024: 9,750 ->
-        # 11,073-11,424 fps (the slot finish must be masked reductions,
-        # not a lane reshape — benchmarks/README.md). Needs even K and
-        # patch <= 64 (the 64-lane slot provably holds every gateable
-        # pixel; both built-in profiles qualify).
-        if cfg.max_candidates % 2 == 0 and profile.patch_size <= 64:
-            from vision_basedsensor_tpu.ops.moments import (
-                moments_from_patches_paired, moments_from_patches_paired_mxu)
-            from vision_basedsensor_tpu.ops.pallas.moments import \
-                gather_windows_paired
-            patches, pstart = gather_windows_paired(packed, peaks, geom,
-                                                    profile)
-            paired_fn = (moments_from_patches_paired_mxu
-                         if cfg.moment_mxu_basis
-                         else moments_from_patches_paired)
-            sums = paired_fn(patches, pstart, peaks, geom, profile, w)
-        else:
-            patches, pstart = gather_windows(packed, peaks, geom, profile)
-            sums = moments_from_patches(patches, pstart, peaks, geom,
-                                        profile, w)
-    else:
-        ncc_mask = (ncc > cfg.ncc_threshold).astype(jnp.float32)
-        # Boundary band of the NCC mask: mask pixels whose band_window
-        # neighborhood touches background (see _finalize_candidates).
-        band = ncc_mask * (min_filter(ncc_mask, profile.band_window) < 0.5)
-        area_open = morph_open(area.astype(jnp.float32), cfg.open_ksize)
-        peaks = find_peaks(ncc, cfg.ncc_threshold, profile.peak_window,
-                           cfg.max_candidates, float(profile.peak_window))
-        geom = jax.vmap(cut_geometry)(peaks)
-        if backend == "pallas":
-            # Custom profiles whose windows exceed the tiled kernel's halo:
-            # the 3-field window-sums kernel still applies per peak.
-            from vision_basedsensor_tpu.ops.pallas.moments import window_sums_pallas
-            sums = window_sums_pallas(band, area_open, gray, peaks, geom,
-                                      profile)
-        else:
-            sums = jax.vmap(lambda b, a, g, p, gm: window_sums_xla(
-                b, a, g, p, gm, profile))(band, area_open, gray, peaks, geom)
+    ncc_mask = (ncc > cfg.ncc_threshold).astype(jnp.float32)
+    # Boundary band of the NCC mask: mask pixels whose band_window
+    # neighborhood touches background (see _finalize_candidates).
+    band = ncc_mask * (min_filter(ncc_mask, profile.band_window) < 0.5)
+    area_open = morph_open(area.astype(jnp.float32), cfg.open_ksize)
+    peaks = find_peaks(ncc, cfg.ncc_threshold, profile.peak_window,
+                       cfg.max_candidates, float(profile.peak_window))
+    geom = jax.vmap(cut_geometry)(peaks)
+    sums = jax.vmap(lambda b, a, g, p, gm: window_sums_xla(
+        b, a, g, p, gm, profile))(band, area_open, gray, peaks, geom)
 
     det, scale = _finalize_candidates(sums, peaks, cfg,
                                       axis_scale=axis_scale)

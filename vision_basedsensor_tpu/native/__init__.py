@@ -1,8 +1,9 @@
 """Native (C++) host-side components, loaded via ctypes.
 
-The TPU is the compute engine; the runtime around it stays native where the
-work is genuinely serial and branchy. Currently: the baseline-JPEG entropy
-decoder (jpeg_coeffs.cpp) that feeds the TPU JPEG decode path (ops/jpeg.py).
+The accelerator is the compute engine; the runtime around it stays native
+where the work is genuinely serial and branchy. Currently: the baseline-JPEG
+entropy decoder (jpeg_coeffs.cpp) that feeds the device JPEG decode path
+(ops/jpeg.py).
 
 Build model: compiled on first use with the system C++ compiler into the
 user cache directory (the package tree may be read-only), then dlopened.

@@ -1,20 +1,20 @@
 // Baseline-JPEG entropy decoder: bytes -> luma DCT coefficients.
 //
-// The host-side half of the framework's TPU JPEG decode path (ops/jpeg.py).
-// Full host JPEG decode (libjpeg via cv2.imdecode) spends most of its time
-// in the IDCT + color stages, which are dense linear algebra — exactly what
-// the TPU's MXU eats. The only genuinely serial, branchy part of JPEG is the
+// The host-side half of the framework's device JPEG decode path
+// (ops/jpeg.py). Full host JPEG decode (libjpeg via cv2.imdecode) spends
+// most of its time in the IDCT + color stages, which are dense linear
+// algebra — work for the accelerator. The only genuinely serial, branchy
+// part of JPEG is the
 // Huffman entropy decode, so that is all this file does: parse the headers,
 // entropy-decode the scan, and emit the luma (Y) component's quantized DCT
 // coefficients in natural (de-zigzagged) order plus the quantization table.
 // Dequantization, the 8x8 IDCT (two small matmuls), level shift, and block
-// reassembly all run batched on the TPU.
+// reassembly all run batched on the device.
 //
 // Two emission formats, one scan decoder (templated sink):
 //
 //  * DENSE:  int16[blocks * 64], block row-major. 2 bytes/coefficient =
-//    614 KB/frame at 640x480 — 2x the raw gray bytes, so on a bandwidth-
-//    limited host->TPU link this format loses to raw-pixel transport.
+//    614 KB/frame at 640x480 — 2x the raw gray bytes.
 //  * DELTA (sparse): quantized luma blocks are overwhelmingly zeros (q70
 //    dark scenes: ~1-4 nonzeros/block), so ship one (gap, value) pair per
 //    nonzero, addressed in the batch's FLAT coefficient space
@@ -27,11 +27,10 @@
 //      - spill:   the rare |coeff| > 127 get a second (gap uint8,
 //                 delta int16 = v - clamp(v)) stream with the same
 //                 filler rule, ADDED on top of the clamped scatter
-//    ~3 bytes per nonzero (~40-60 KB/frame at 480p q70). The TPU expands
-//    this with ONE cumsum + ONE sorted-unique scatter + the spill add
-//    (ops/jpeg.py:delta_idct_frames) — measured ~25x faster than the
-//    earlier bitmask format's per-output-element gather expansion, whose
-//    78M scalar gathers per 256-frame batch serialized on the TPU.
+//    ~3 bytes per nonzero (~40-60 KB/frame at 480p q70). The device
+//    expands this with ONE cumsum + ONE sorted-unique scatter + the spill
+//    add (ops/jpeg.py:delta_idct_frames), scaling with the nonzeros
+//    instead of the dense size.
 //
 // Scope: baseline sequential DCT (SOF0), 8-bit, Huffman, 1 or 3 components,
 // luma sampling factors up to 2x2 with 1x1 chroma (covers libjpeg/cv2
@@ -415,12 +414,11 @@ struct DeltaVecSink {
 //   byte framing is self-synchronizing UTF-8 style: after any byte whose
 //   value code is not EXT, the next byte starts an entry, so entry starts
 //   are recoverable by a parity scan over the EXT-code flag — which is
-//   exactly how the TPU decodes this stream with no gathers
+//   exactly how the device decodes this stream with no gathers
 //   (ops/jpeg.py:split_idct_frames). Replaces the round-4 format's
 //   clamp-to-[-15,15] + 4-byte spill pair (1 entry byte + 4 spill bytes
 //   -> 2 bytes for every |v| in 16..127 — measured ~3.7 KB/frame on q70
-//   480p, the difference between clearing the 1000 fps ingest bar on a
-//   22 MB/s link day and missing it).
+//   480p).
 //
 // zmax (2..64, default 64) BAND-LIMITS the transport: AC coefficients at
 // zigzag scan index >= zmax are dropped at emit time and the position
@@ -433,8 +431,7 @@ struct DeltaVecSink {
 // and host emit work (tests/test_jpeg.py pins the end-to-end envelope).
 //
 // ~1 byte/AC + 1 byte/block beats the 2-byte delta pairs by ~40% on real
-// q70 streams (measured 40 -> 24.5 KB/frame at 480p) — the transport is
-// for host->TPU links where bytes are the wall (benchmarks/README.md).
+// q70 streams (measured 40 -> 24.5 KB/frame at 480p).
 struct SplitSink {
   static constexpr bool kZigzagOrder = true;  // see emit(): zigzag gaps
   uint8_t* ac;
@@ -732,7 +729,7 @@ struct SplitVecSink {
 // ignored on BOTH sides of the delta (decode = dense with that tail
 // zeroed). Noise-heavy streams degrade boundedly: the delta support is at
 // most nnz(cur) + nnz(prev), ~2x SPLIT's entry count — the transport is
-// selected per deployment (io/video.MjpegAviTpuSource(transport=...)).
+// selected per deployment (io/video.MjpegAviDeviceSource(transport=...)).
 struct TDeltaSink {
   static constexpr bool kZigzagOrder = true;
   uint8_t* ac;
@@ -1376,7 +1373,7 @@ int vbs_mjpeg_batch_y_coeffs_delta_mt(
 }
 
 // SPLIT batch variant: DC/AC-separated transport (see SplitSink) — the
-// lowest-byte lossless format for link-bound host->TPU ingest.
+// lowest-byte scene-independent lossless format.
 //
 //   out_ac      : uint8[ac_cap] AC entry bytes (gap-1 | code<<3; SHORT/
 //                 EXT/escape framing per the SplitSink header)

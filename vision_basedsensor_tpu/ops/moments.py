@@ -1,15 +1,10 @@
 """Per-peak window moment sums + finalization into marker candidates.
 
 The detector's per-candidate stage reduces three image fields over a window
-around each peak into 24 sums; everything downstream (centroids, ellipse
-axes, validity gates) is closed-form in those sums. Two interchangeable
-backends produce them:
-
-* ``window_sums_xla`` — gather patches with ``dynamic_slice`` and reduce
-  (vmapped XLA);
-* ``ops.pallas.moments.window_sums_pallas`` — a fused Pallas kernel that
-  DMAs each window HBM->VMEM once and accumulates in registers, skipping the
-  patch materialization round-trip.
+around each peak into 28 sums; everything downstream (centroids, ellipse
+axes, validity gates) is closed-form in those sums. ``window_sums_xla``
+produces them: gather patches with ``dynamic_slice`` and reduce (vmapped
+XLA; on a GPU the gather is an ordinary indexed load).
 
 Coordinates in the sums are RELATIVE to the peak (dx, dy in [-P/2, P/2]):
 raw second moments around absolute pixel coordinates would lose ~5 digits to
@@ -61,8 +56,7 @@ def soft_weight_remap(w: jnp.ndarray, floor: float) -> jnp.ndarray:
     ``DetectProfile.soft_floor``): maps ``[floor, 1-floor] -> [0, 1]``
     keeping the half-level point fixed. Zeroes the additive noise skirt
     (background pixels whose clipped ``w`` is positive purely from noise)
-    that otherwise inflates soft second moments. Identity for ``floor<=0``.
-    Shared by all three window-sums backends so they stay bit-equivalent."""
+    that otherwise inflates soft second moments. Identity for ``floor<=0``."""
     if floor <= 0.0:
         return w
     return jnp.clip((w - floor) * (1.0 / (1.0 - 2.0 * floor)), 0.0, 1.0)
@@ -109,7 +103,7 @@ def cut_geometry(peaks: Peaks) -> CutGeometry:
 def window_sums_xla(band: jnp.ndarray, area: jnp.ndarray, gray: jnp.ndarray,
                     peaks: Peaks, geom: CutGeometry,
                     profile: DetectProfile) -> jnp.ndarray:
-    """Reference backend: patches + reductions. Returns ``(K, NUM_SUMS)``."""
+    """Patches + reductions. Returns ``(K, NUM_SUMS)``."""
     p = profile.patch_size
     b_patch, start = extract_patches(band, peaks.xy, p)
     a_patch, _ = extract_patches(area, peaks.xy, p)
@@ -153,295 +147,6 @@ def window_sums_xla(band: jnp.ndarray, area: jnp.ndarray, gray: jnp.ndarray,
         m(fb), m(fa), m2(fa), m(w), m2(w), m(wh), m2(wh),
         lo[:, None], hi[:, None], c.sum(-1)[:, None], m3(w),
     ], axis=-1)
-
-
-def unpack_packed_field(packed: jnp.ndarray):
-    """Inverse of the fused field kernel's packing
-    ``gray + 256*band + 512*area_open`` (exact: masks are 0/1, gray in
-    [0, 256)). Returns ``(band, area, gray)``."""
-    area = jnp.floor(packed * (1.0 / 512.0))
-    r = packed - 512.0 * area
-    band = jnp.floor(r * (1.0 / 256.0))
-    return band, area, r - 256.0 * band
-
-
-def _channels(patches, keep, profile: DetectProfile, *, vmin, vmax, expand):
-    """Per-element moment integrand channels shared by every batched-XLA
-    backend: gated band/area masks, photometric soft weights (min/max
-    normalized inside the cut), their half-level threshold, and the cut
-    itself, plus the per-window lo/hi scalars. ``vmin``/``vmax`` reduce a
-    gated element tensor to a per-window scalar and ``expand`` broadcasts
-    one back — the only layout-specific plumbing."""
-    f = jnp.float32
-    cut = keep.astype(f)
-    band, area, gray = unpack_packed_field(patches)
-    b = band * cut
-    a = area * cut
-    lo = vmin(jnp.where(keep, gray, jnp.inf))
-    hi = vmax(jnp.where(keep, gray, -jnp.inf))
-    hi_e, lo_e = expand(hi), expand(lo)
-    contrast = jnp.maximum(hi_e - lo_e, 1e-3)
-    w = jnp.clip((hi_e - gray) / contrast, 0.0, 1.0)
-    w = soft_weight_remap(w, profile.soft_floor) * cut
-    wh = (w >= 0.5).astype(f)
-    return b, a, w, wh, cut, lo, hi
-
-
-def _moment_stack(patches, dx, dy, keep, profile: DetectProfile, *,
-                  red, vmin, vmax, expand) -> jnp.ndarray:
-    """The single definition of the 28-sum construction shared by the
-    batched-XLA backends (plain and paired window layouts); only the
-    reduction/broadcast shape-plumbing differs per layout:
-
-    * ``red(v)``: fused full reduction of one integrand -> per-window sums;
-    * ``vmin``/``vmax``: masked min/max of gated gray -> per-window scalar;
-    * ``expand(s)``: broadcast a per-window scalar back over the elements.
-
-    (``window_sums_xla`` and the in-kernel ``_accumulate`` keep their own
-    layout-specific forms; the parity tests pin all backends equal.)
-    """
-    b, a, w, wh, cut, lo, hi = _channels(patches, keep, profile, vmin=vmin,
-                                         vmax=vmax, expand=expand)
-
-    def m(v):
-        return [red(v), red(v * dx), red(v * dy)]
-
-    def m2(v):
-        return [red(v * dx * dx), red(v * dy * dy), red(v * dx * dy)]
-
-    def m3(v):
-        return [red(v * dx * dx * dx), red(v * dx * dx * dy),
-                red(v * dx * dy * dy), red(v * dy * dy * dy)]
-
-    return jnp.stack(m(b) + m(a) + m2(a) + m(w) + m2(w) + m(wh) + m2(wh)
-                     + [lo, hi, red(cut)] + m3(w), axis=-1)
-
-
-def moments_from_patches(patches: jnp.ndarray, start: jnp.ndarray,
-                         peaks: Peaks, geom: CutGeometry,
-                         profile: DetectProfile, width: int) -> jnp.ndarray:
-    """Batched moment sums from pre-gathered packed-field windows.
-
-    ``patches`` ``(..., K, R, C)`` are aligned windows of the packed field
-    (ops/pallas/moments.py:gather_windows) with origins ``start``
-    ``(..., K, 2)``. All B*K windows reduce in one fused XLA pass — on TPU
-    this is HBM-bound (~2 passes over the patch tensor) where the in-kernel
-    per-peak accumulate loop was vector-issue-bound (measured 68 us/frame ->
-    see gather kernel docstring). Output layout identical to
-    :func:`window_sums_xla`.
-
-    ``width`` is the source image width: the rolled windows are wider than
-    the clipped patch (C=128 > patch_size), so for a peak near the RIGHT
-    border, columns past ``width`` hold wrapped garbage whose coordinates
-    can still fall inside the cutoff disk — they must be excluded by
-    coordinate, exactly like the XLA patch (which physically ends at the
-    border) excludes them. Rows never overflow (the 8-aligned row start's
-    slack stays inside [0, H)), and the patch start clip keeps columns
-    >= 0, so the right edge is the only exposure.
-    """
-    r_, c_ = patches.shape[-2:]
-    f = jnp.float32
-    dx = (start[..., 0, None].astype(f) - peaks.xy[..., 0, None]
-          + jnp.arange(c_, dtype=f))[..., None, :]           # (..., K, 1, C)
-    dy = (start[..., 1, None].astype(f) - peaks.xy[..., 1, None]
-          + jnp.arange(r_, dtype=f))[..., :, None]           # (..., K, R, 1)
-
-    in_image = (start[..., 0, None].astype(f)
-                + jnp.arange(c_, dtype=f)) < float(width)    # (..., K, C)
-    keep = ((dx * dx + dy * dy) <= profile.radial_cutoff_px ** 2) \
-        & in_image[..., None, :]
-    rhs = jnp.minimum(geom.rhs, 3e38)
-    for j in range(3):
-        keep = keep & ((dx * geom.ex[..., j, None, None]
-                        + dy * geom.ey[..., j, None, None])
-                       <= rhs[..., j, None, None] + 1e-3)
-    # Direct fused reductions. A separable row-first variant (reduce rows
-    # once per dy power, finish on (K, C) partials) was measured SLOWER
-    # end-to-end — 7,950 vs 9,800 fps: XLA already fuses all 28 reductions
-    # into one pass over the patch tensor, and the row-first form splits
-    # that fusion and materializes the partials.
-    return _moment_stack(
-        patches, dx, dy, keep, profile,
-        red=lambda v: jnp.sum(v, axis=(-2, -1)),
-        vmin=lambda v: jnp.min(v, axis=(-2, -1)),
-        vmax=lambda v: jnp.max(v, axis=(-2, -1)),
-        expand=lambda s: s[..., None, None])
-
-
-def moments_from_patches_paired(patches: jnp.ndarray, start: jnp.ndarray,
-                                peaks: Peaks, geom: CutGeometry,
-                                profile: DetectProfile,
-                                width: int) -> jnp.ndarray:
-    """Paired-window variant of :func:`moments_from_patches`.
-
-    ``patches`` ``(..., K//2, R, 128)`` pack TWO peaks' windows per
-    128-lane row (window ``2*k2 + j`` in lanes ``[64*j, 64*j + 64)``,
-    ops/pallas/moments.py:gather_windows_paired). The reductions here are
-    vector-issue-bound, not HBM-bound (measured ~22 us/frame of ~103 with
-    XLA fusing all 28 sums into one pass), so halving the element count is
-    the lever the lane-padding of single-window rows wastes. Per-window
-    scalars (patch origin, peak, halfplanes) become per-lane-group columns
-    via a static repeat; the final per-window split is a (2, 64) lane-group
-    reshape of the fused row-sums. Output layout identical to
-    :func:`window_sums_xla`: ``(..., K, NUM_SUMS)``.
-    """
-    dx, dy, keep, red, vmin, vmax, expand = _paired_plumbing(
-        patches, start, peaks, geom, profile, width)
-    return _moment_stack(patches, dx, dy, keep, profile,
-                         red=red, vmin=vmin, vmax=vmax, expand=expand)
-
-
-def _paired_plumbing(patches, start, peaks, geom, profile: DetectProfile,
-                     width: int):
-    """Shared geometry + reduction closures of the paired-window layout
-    (coordinates, cut mask, slot-masked reductions). Used by both the
-    fused-reduction backend (:func:`moments_from_patches_paired`) and the
-    MXU raw-moment backend (:func:`moments_from_patches_paired_mxu`)."""
-    r_, c_ = patches.shape[-2:]
-    if c_ != 128:
-        raise ValueError(f"paired patches must have 128 lanes, got {c_}")
-    k2 = patches.shape[-3]
-    f = jnp.float32
-
-    local = (jnp.arange(c_) % 64).astype(f)                  # lane-local col
-
-    def lane_expand(q):      # (..., K) -> (..., K2, 128), window j in 64*j+
-        return jnp.repeat(q.reshape(*q.shape[:-1], k2, 2).astype(f), 64,
-                          axis=-1)
-
-    sx_l = lane_expand(start[..., 0])
-    offx = lane_expand(start[..., 0].astype(f) - peaks.xy[..., 0])
-    offy = lane_expand(start[..., 1].astype(f) - peaks.xy[..., 1])
-    dx = offx[..., None, :] + local                          # (..., K2, 1, C)
-    dy = offy[..., None, :] + jnp.arange(r_, dtype=f)[:, None]  # (..., K2, R, C)
-
-    in_image = (sx_l + local) < float(width)                 # (..., K2, C)
-    keep = ((dx * dx + dy * dy) <= profile.radial_cutoff_px ** 2) \
-        & in_image[..., None, :]
-    rhs = jnp.minimum(geom.rhs, 3e38)
-    for j in range(3):
-        keep = keep & ((dx * lane_expand(geom.ex[..., j])[..., None, :]
-                        + dy * lane_expand(geom.ey[..., j])[..., None, :])
-                       <= lane_expand(rhs[..., j])[..., None, :] + 1e-3)
-    # Slot-group finishes WITHOUT reshaping the hot tensor: a lane reshape
-    # of a fused row-reduce makes XLA materialize a (.., K2, 128) partial
-    # PER MOMENT once `sums` has real consumers (measured: full detect
-    # regressed 9,732 -> 8,741 fps at B=1024 while the sums-only chained
-    # ablation still looked faster). Two masked full reductions per moment
-    # keep every sum inside the single fused pass over the patch tensor.
-    slot0 = (jnp.arange(c_) < 64)
-    m0 = slot0.astype(f)
-
-    def interleave(s0, s1):  # (..., K2) x2 -> (..., K), window 2*k2+j
-        return jnp.stack([s0, s1], axis=-1).reshape(*s0.shape[:-1], 2 * k2)
-
-    red = lambda v: interleave(jnp.sum(v * m0, axis=(-2, -1)),       # noqa: E731
-                               jnp.sum(v - v * m0, axis=(-2, -1)))
-    vmin = lambda v: interleave(                                     # noqa: E731
-        jnp.min(jnp.where(slot0, v, jnp.inf), axis=(-2, -1)),
-        jnp.min(jnp.where(slot0, jnp.inf, v), axis=(-2, -1)))
-    vmax = lambda v: interleave(                                     # noqa: E731
-        jnp.max(jnp.where(slot0, v, -jnp.inf), axis=(-2, -1)),
-        jnp.max(jnp.where(slot0, -jnp.inf, v), axis=(-2, -1)))
-    expand = lambda s: lane_expand(s)[..., None, :]                  # noqa: E731
-    return dx, dy, keep, red, vmin, vmax, expand
-
-
-def moments_from_patches_paired_mxu(patches: jnp.ndarray,
-                                    start: jnp.ndarray, peaks: Peaks,
-                                    geom: CutGeometry,
-                                    profile: DetectProfile,
-                                    width: int) -> jnp.ndarray:
-    """MXU raw-moment basis variant of :func:`moments_from_patches_paired`
-    (identical output layout, same paired-window input).
-
-    Instead of 26 fused elementwise multiply-reduce passes (vector-issue
-    bound on the VPU), each integrand channel's full moment set is two
-    matmuls against FIXED polynomial bases — work the MXU does "for free"
-    next to the VPU-bound pipeline:
-
-    * rows:  ``Y = Drow @ V`` with ``Drow (4, R) = [1, rc, rc^2, rc^3]``
-      over window-centered row coordinates ``rc = r - (R-1)/2``;
-    * cols:  ``M = Y @ Dcol`` with ``Dcol (128, 8)`` holding the four
-      window-centered column powers per 64-lane slot (the slot masking is
-      folded into the basis, so the paired split costs nothing);
-    * a per-window binomial shift maps the window-centered raw moments to
-      the peak-relative ones (the shift offsets are the sub-pixel patch
-      alignment residuals, |o| <~ patch/2, so f32 cancellation stays far
-      from the ~5-digit loss of absolute-coordinate raw moments that the
-      module header rules out).
-
-    Matmuls run at ``Precision.HIGHEST`` (f32-accurate bf16_6x): the
-    third-moment basis spans ~3e4 and single-pass bf16 would destroy the
-    occlusion skew. The min/max photometric normalization stays on the
-    VPU (not expressible as a matmul).
-    """
-    dx, dy, keep, red, vmin, vmax, expand = _paired_plumbing(
-        patches, start, peaks, geom, profile, width)
-    del dx, dy, red
-    b, a, w, wh, cut, lo, hi = _channels(patches, keep, profile, vmin=vmin,
-                                         vmax=vmax, expand=expand)
-    r_, c_ = patches.shape[-2:]
-    k2 = patches.shape[-3]
-    f = jnp.float32
-    hp = jax.lax.Precision.HIGHEST
-
-    rc = jnp.arange(r_, dtype=f) - (r_ - 1) / 2.0
-    lc = (jnp.arange(c_) % 64).astype(f) - 31.5
-    drow = jnp.stack([jnp.ones_like(rc), rc, rc * rc, rc * rc * rc])  # (4,R)
-    cpow = jnp.stack([jnp.ones_like(lc), lc, lc * lc, lc * lc * lc],
-                     axis=-1)                                         # (128,4)
-    s0 = (jnp.arange(c_) < 64).astype(f)[:, None]
-    dcol = jnp.concatenate([cpow * s0, cpow * (1.0 - s0)], axis=-1)   # (128,8)
-
-    def raw(v):
-        """(..., K2, R, 128) -> (..., K, 4, 4) raw moments R[q][p] =
-        sum v * rc^q * lc^p, per 64-lane slot (window = 2*k2 + slot)."""
-        y = jnp.einsum("qr,...rl->...ql", drow, v, precision=hp)
-        m = jnp.einsum("...ql,le->...qe", y, dcol, precision=hp)
-        m = m.reshape(*m.shape[:-1], 2, 4)          # (..., K2, 4q, 2s, 4p)
-        m = jnp.moveaxis(m, -2, -3)                 # (..., K2, 2s, 4q, 4p)
-        return m.reshape(*m.shape[:-4], 2 * k2, 4, 4)
-
-    # Per-window shift offsets: dx = ox + lc, dy = oy + rc.
-    ox = start[..., 0].astype(f) - peaks.xy[..., 0] + 31.5          # (..., K)
-    oy = start[..., 1].astype(f) - peaks.xy[..., 1] + (r_ - 1) / 2.0
-
-    def shifted(R, orders):
-        """Binomial shift of raw moments to peak-relative (dx, dy) moments
-        for the requested ``(q, p)`` = (dy power, dx power) orders."""
-        r = lambda q, p: R[..., q, p]                        # noqa: E731
-        table = {
-            (0, 0): lambda: r(0, 0),
-            (0, 1): lambda: r(0, 1) + ox * r(0, 0),
-            (1, 0): lambda: r(1, 0) + oy * r(0, 0),
-            (0, 2): lambda: r(0, 2) + 2 * ox * r(0, 1) + ox * ox * r(0, 0),
-            (2, 0): lambda: r(2, 0) + 2 * oy * r(1, 0) + oy * oy * r(0, 0),
-            (1, 1): lambda: (r(1, 1) + ox * r(1, 0) + oy * r(0, 1)
-                             + ox * oy * r(0, 0)),
-            (0, 3): lambda: (r(0, 3) + 3 * ox * r(0, 2)
-                             + 3 * ox * ox * r(0, 1) + ox ** 3 * r(0, 0)),
-            (1, 2): lambda: (r(1, 2) + oy * r(0, 2) + 2 * ox * r(1, 1)
-                             + 2 * ox * oy * r(0, 1) + ox * ox * r(1, 0)
-                             + ox * ox * oy * r(0, 0)),
-            (2, 1): lambda: (r(2, 1) + ox * r(2, 0) + 2 * oy * r(1, 1)
-                             + 2 * ox * oy * r(1, 0) + oy * oy * r(0, 1)
-                             + oy * oy * ox * r(0, 0)),
-            (3, 0): lambda: (r(3, 0) + 3 * oy * r(2, 0)
-                             + 3 * oy * oy * r(1, 0) + oy ** 3 * r(0, 0)),
-        }
-        return [table[qp]() for qp in orders]
-
-    deg1 = [(0, 0), (0, 1), (1, 0)]                 # [sum, *dx, *dy]
-    deg2 = [(0, 2), (2, 0), (1, 1)]                 # [*dx^2, *dy^2, *dx*dy]
-    deg3 = [(0, 3), (1, 2), (2, 1), (3, 0)]         # [x^3, x^2 y, x y^2, y^3]
-    rb, ra, rw, rwh, rcut = raw(b), raw(a), raw(w), raw(wh), raw(cut)
-    return jnp.stack(
-        shifted(rb, deg1) + shifted(ra, deg1) + shifted(ra, deg2)
-        + shifted(rw, deg1) + shifted(rw, deg2)
-        + shifted(rwh, deg1) + shifted(rwh, deg2)
-        + [lo, hi, shifted(rcut, [(0, 0)])[0]] + shifted(rw, deg3),
-        axis=-1)
 
 
 class Finalized(NamedTuple):
@@ -560,10 +265,8 @@ def _occlusion_polys():
     radius). Both inversion curves are smooth in ``log(ratio)``, so a
     degree-7 least-squares fit reproduces them to <= 3.3e-4 absolute
     (sub-millipixel at any real marker radius) — and Horner evaluation is
-    pure VPU math. The previous ``jnp.interp`` lookups cost 11% of TOTAL
-    pipeline throughput (measured 8,965 -> 10,083 fps without them):
-    interp's searchsorted+take lowers to per-element scalar gathers, which
-    serialize on TPU.
+    plain elementwise math that fuses into its neighbours, where
+    ``jnp.interp``'s searchsorted+take lowers to per-element gathers.
 
     Returns float tuples (shift_coeffs, sqlv_coeffs) highest-degree first,
     valid for ratio in [1.003, 8.43] (clamp before evaluating).
@@ -628,8 +331,8 @@ def complete_occluded(fin: Finalized, min_ratio: float, max_ratio: float,
     occluded = ((ratio >= min_ratio) & (ratio <= max_ratio)
                 & (fin.skew >= min_skew))
 
-    # Invert the censored-disk model via the log-ratio polynomials (pure
-    # VPU; see _occlusion_polys for why not jnp.interp).
+    # Invert the censored-disk model via the log-ratio polynomials (see
+    # _occlusion_polys for why not jnp.interp).
     x = jnp.log(jnp.clip(ratio, 1.003, 8.43))
     # lam_v in axis units: major = 4 sqrt(lam_v) * scale.
     sqrt_lv_meas = major / 4.0

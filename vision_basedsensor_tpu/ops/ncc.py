@@ -2,8 +2,8 @@
 
 The reference computes NCC with three full-frame FFT convolutions per frame
 (``marker_detection.py:145-164``) — the dominant cost of its hot loop
-(SURVEY.md §3.2). On TPU, FFTs are a poor fit but the same quantity
-decomposes exactly into six 1-D separable convolutions, because:
+(SURVEY.md §3.2). The same quantity decomposes exactly into six 1-D
+separable convolutions, because:
 
 * the numerator ``corr(image0, template - mean(template))`` expands to
   ``corr(image, g) - mean(g) * boxsum(image)`` (the template has unit sum, so
@@ -12,8 +12,8 @@ decomposes exactly into six 1-D separable convolutions, because:
 * the denominator's local variance is ``boxsum(image^2) - boxsum(image)^2/n``;
 * Gaussian and box kernels are both rank-1 separable.
 
-This keeps every op on the MXU/VPU fast path with zero-padded 'same'
-borders matching ``scipy.signal.fftconvolve(mode='same')``; for binary
+This keeps every op a dense matmul or elementwise pass, with zero-padded
+'same' borders matching ``scipy.signal.fftconvolve(mode='same')``; for binary
 inputs (the detector's mask) ``box(m^2)`` is closed-form and only four
 filter passes remain.
 """

@@ -1,7 +1,7 @@
 """Fixed-size window extraction around peak locations.
 
 Gives downstream moment/centroid math a static ``(K, P, P)`` shape regardless
-of how many markers are present — the TPU-native answer to the reference's
+of how many markers are present — the fixed-shape answer to the reference's
 per-contour Python loops (``marker_detection.py:198-249``).
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Replaces the reference's ``maximum_filter``/``minimum_filter`` +
 ``ndimage.label`` + ``center_of_mass`` pipeline (``marker_detection.py:166-183``)
-— whose connected-component labeling is data-dependent and TPU-hostile —
+— whose connected-component labeling is data-dependent and shape-unstable —
 with: window local-max test on the smooth NCC field, ``top_k`` extraction
 into a fixed candidate budget, and an O(K^2) greedy distance suppression to
 collapse plateau ties. Sub-pixel refinement happens downstream on mask
@@ -41,9 +41,8 @@ def select_peaks_from_cells(cmax: jnp.ndarray, cflat: jnp.ndarray, width: int,
                             max_peaks: int, min_distance: float) -> Peaks:
     """Candidate selection from per-cell reductions: ``top_k`` over the cell
     maxima ``cmax`` ``(..., HC, WC)`` + their row-major flat pixel indices
-    ``cflat`` (``y * width + x``), then distance suppression. Shared tail of
-    :func:`find_peaks`; also consumed by the fused Pallas field kernel
-    (ops/pallas/fields.py), which produces the cell reductions on-chip."""
+    ``cflat`` (``y * width + x``), then distance suppression. The tail of
+    :func:`find_peaks`."""
     batch = cmax.shape[:-2]
     n = cmax.shape[-2] * cmax.shape[-1]
     vals, cidx = jax.lax.top_k(cmax.reshape(batch + (n,)), max_peaks)
@@ -70,9 +69,9 @@ def find_peaks(score: jnp.ndarray, threshold: float, window: int,
     otherwise produce several adjacent candidates where the reference's
     labeling produced one component).
 
-    TPU note: ``top_k`` over the raw H*W pixels is sort-bound; instead each
-    ``cell x cell`` tile is reduced to its best candidate first (max+argmax,
-    pure VPU) and ``top_k`` runs over the ~H*W/cell^2 tile maxima. Peaks
+    ``top_k`` over the raw H*W pixels is sort-bound; instead each
+    ``cell x cell`` tile is reduced to its best candidate first (max+argmax)
+    and ``top_k`` runs over the ~H*W/cell^2 tile maxima. Peaks
     closer than ``cell`` to each other collapse to one candidate per tile —
     safe here because real markers are farther apart than any sensible cell
     (min marker spacing ~20 px vs cell 8).
@@ -88,10 +87,6 @@ def find_peaks(score: jnp.ndarray, threshold: float, window: int,
     sp = jnp.pad(sp, pad, constant_values=-jnp.inf)
     batch = sp.shape[:-2]
     tiles = sp.reshape(batch + (hc, cell, wc, cell))
-    # NOTE (measured): replacing this relayout + full argmax with a pure
-    # reduction + per-winner dynamic_slice gathers regressed end-to-end
-    # throughput 6185 -> 2919 fps (scattered gathers lose to one regular
-    # transpose); this version stays. See git history.
     tiles = jnp.moveaxis(tiles, -3, -2).reshape(batch + (hc, wc, cell * cell))
     cmax = jnp.max(tiles, axis=-1)
     coff = jnp.argmax(tiles, axis=-1)

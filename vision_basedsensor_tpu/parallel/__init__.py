@@ -3,10 +3,8 @@ from vision_basedsensor_tpu.parallel.mesh import (
     collective_ops_in_hlo,
     make_mesh,
     make_sharded_pipeline,
-    pallas_custom_calls_in_hlo,
     shard_frames,
 )
 
 __all__ = ["ShardedPackedFeed", "collective_ops_in_hlo", "make_mesh",
-           "make_sharded_pipeline", "pallas_custom_calls_in_hlo",
-           "shard_frames"]
+           "make_sharded_pipeline", "shard_frames"]

@@ -11,19 +11,19 @@ sensor pipeline's natural multi-chip axes are:
 The one sequential coupling is the last-sighting displacement scan
 (reconstruct/displacement.py). Its state is tiny — 65 markers x 3 floats per
 frame — so the design replicates it: a sharding constraint before the scan
-makes XLA all-gather the per-frame marker tensors (a few KB over ICI) and
-every device runs the identical scan, keeping the heavy pixel work fully
-sharded with no cross-device serialization.
+makes XLA all-gather the per-frame marker tensors (a few KB between
+devices) and every device runs the identical scan, keeping the heavy pixel
+work fully sharded with no cross-device serialization. The devices of one
+host are joined all to all, so the mesh follows the algorithm alone.
 
 On a data-only mesh the detect stage runs under EXPLICIT ``jax.shard_map``
-rather than GSPMD auto-partitioning: each device executes the single-chip
-detect program (Pallas kernels included on TPU) on its local frame block —
-pallas_call under GSPMD is exactly the kind of op that fails or silently
-replicates, and shard_map removes the partitioner from the equation
-(evidence: tests/test_parallel.py::test_pallas_kernels_survive_spmd_on_tpu
-asserts the Mosaic custom-calls survive in the compiled sharded HLO).
-Spatial (row-sharded) meshes keep the GSPMD XLA path — whole-frame kernels
-cannot take row shards, and XLA inserts the convolution halo exchanges.
+rather than GSPMD auto-partitioning: detection is purely per-frame, and
+shard_map states that contract — each device executes the single-device
+detect program on its local frame block, and the partitioner gets no
+chance to replicate or exchange inside the candidate gathers and
+``top_k``. ``collective_ops_in_hlo`` checks the outcome: the scan-state
+all-gather is the step's only collective. Spatial (row-sharded) meshes
+use GSPMD, which inserts the filters' halo exchanges.
 """
 from __future__ import annotations
 
@@ -123,25 +123,15 @@ def make_sharded_pipeline(mesh: Mesh, cam: CameraModel, cfg: PipelineConfig,
     n_data = dict(zip(mesh.axis_names, mesh.devices.shape))["data"]
 
     detect_cfg = cfg.detect
-    if spatial:
-        # Row-sharded frames cannot feed the whole-frame Pallas kernels
-        # (fused_fields walks full rows; the window DMAs assume the full
-        # image in HBM). GSPMD handles the XLA path's convolution halos;
-        # force it rather than trust pallas_call partitioning.
-        import dataclasses
-        detect_cfg = dataclasses.replace(detect_cfg, backend="xla")
 
     def _detect_sharded(frames_c, axis_scale):
         """Detect under explicit shard_map on the data axis.
 
-        GSPMD partitioning of ``pallas_call`` is exactly the kind of thing
-        that fails or silently replicates (VERDICT round 2, weak 2) — with
-        ``shard_map`` each device runs the detect program (Pallas kernels
-        included, on TPU) on its LOCAL (B/n, H, W) block, which is the
-        single-chip code path that is already tested. Detection is purely
-        per-frame, so no collectives are needed inside the region. The
-        batch is padded to a multiple of the data axis (zero frames yield
-        no detections) and sliced back after.
+        Each device runs the single-device detect program on its LOCAL
+        (B/n, H, W) block — the code path the single-device tests cover.
+        Detection is purely per-frame, so no collectives are needed inside
+        the region. The batch is padded to a multiple of the data axis
+        (zero frames yield no detections) and sliced back after.
         """
         b = frames_c.shape[0]
         pad = (-b) % n_data
@@ -281,23 +271,6 @@ def make_sharded_pipeline(mesh: Mesh, cam: CameraModel, cfg: PipelineConfig,
     return step
 
 
-def pallas_custom_calls_in_hlo(step, *example_args) -> int:
-    """Count Mosaic (Pallas) custom-calls in the step's compiled HLO.
-
-    Evidence hook (VERDICT round 2, next 3): on a TPU mesh the sharded
-    pipeline must still lower the detect kernels per-shard — a silent
-    fallback to the XLA path (or a replicated kernel) would show up here as
-    a zero count. On CPU the detector resolves to the XLA backend, so the
-    count is legitimately 0 there.
-    """
-    if hasattr(step, "jitted_for"):   # make_sharded_pipeline wrapper
-        step = step.jitted_for(example_args[0])
-        example_args = (*example_args, jnp.int32(0))   # the warmup offset
-    text = step.lower(*example_args).compile().as_text()
-    return sum(1 for line in text.splitlines()
-               if "custom-call" in line and "tpu_custom_call" in line)
-
-
 def collective_ops_in_hlo(step, *example_args) -> list[str]:
     """Names of cross-device collective ops in the step's compiled HLO.
 
@@ -313,7 +286,7 @@ def collective_ops_in_hlo(step, *example_args) -> list[str]:
     text = step.lower(*example_args).compile().as_text()
     # Negative lookahead: 'all-gather-done(' would otherwise match the
     # 'all-gather' alternative ('-' is a word boundary), double-counting
-    # every async pair on real-TPU HLO (round-3 review).
+    # every async pair of an accelerator's HLO.
     pat = re.compile(r"\b(all-gather(?:-start)?|all-reduce(?:-start)?|"
                      r"all-to-all|collective-permute(?:-start)?|"
                      r"reduce-scatter)\b(?!-done)")

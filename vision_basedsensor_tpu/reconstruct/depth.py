@@ -4,7 +4,7 @@ The reference computes 3D positions with a doubly-nested Python loop —
 ``groupby(frame) x iterrows(marker)`` with two scalar ``_calculate_3d_position``
 calls per observation (``3d_reconstruction.py:263-314``, SURVEY.md §3.4).
 Here the whole video is one tensor op: undistort ``(B, 65, 2)`` points, then
-depth-from-diameter back-projection, all on the MXU/VPU.
+depth-from-diameter back-projection, all on the device.
 """
 from __future__ import annotations
 

@@ -109,7 +109,8 @@ def _render_impl(cam, marker_world, displacements, marker_mask,
     uv = cam_mod.project_points(cam, pos)                       # (B, 65, 2)
     J = _projection_jacobian(cam, pos)                          # (B, 65, 2, 3)
     # Image of the marker ball: ellipse with shape matrix M = (r^2 J J^T)^-1.
-    JJt = jnp.einsum("...ij,...kj->...ik", J, J) * marker_radius_mm**2
+    JJt = jnp.einsum("...ij,...kj->...ik", J, J,
+                     precision=jax.lax.Precision.HIGHEST) * marker_radius_mm**2
     Minv = jnp.linalg.inv(JJt + 1e-9 * jnp.eye(2, dtype=JJt.dtype))  # (B, 65, 2, 2)
     # Effective pixel radius (geometric mean) for anti-aliasing width.
     r_px = jnp.sqrt(jnp.sqrt(jnp.linalg.det(JJt)))

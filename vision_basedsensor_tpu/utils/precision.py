@@ -9,8 +9,8 @@ the calibration entry points opt in locally: ``@with_x64`` scopes
 ``jax.enable_x64`` around the call, leaving the hot pipeline (which is
 deliberately f32/bf16) untouched.
 
-Calibration runs once per sensor setup, off the hot path; the f64 emulation
-cost on TPU is irrelevant there.
+Calibration runs once per sensor setup, off the hot path; the cost of f64
+arithmetic is irrelevant there.
 """
 from __future__ import annotations
 
